@@ -1,7 +1,7 @@
 """Shared exact-arithmetic constants for kbbq-tpu.
 
 Everything here is part of the *bit-exact* spec shared by the NumPy oracle
-(``kbbq_tpu.oracle``) and the JAX/TPU kernels (``kbbq_tpu.ops``).  Any change
+(``kbbq_tpu.oracle``) and the JAX kernels (``kbbq_tpu.ops``).  Any change
 here changes the output bytes; see ``kbbq_tpu/oracle/DECISIONS.md``.
 
 Parity note: the reference (adamjorr/kbbq) mount was empty at build time
@@ -28,7 +28,7 @@ DEFAULT_K = 32          # k <= 32 (2 bits/base packed into two uint32 lanes)
 MAX_K = 32
 
 # ---------------------------------------------------------------------------
-# Hashing (32-bit only — TPU has no fast int64; SURVEY.md H3)
+# Hashing (32-bit only — part of the bit-exact spec; SURVEY.md H3)
 # ---------------------------------------------------------------------------
 # murmur3 fmix32 constants
 FMIX32_C1 = 0x85EBCA6B

@@ -3,7 +3,7 @@
 Reference analog: kbbq/gatk/applybqsr.py (SURVEY.md §3.2 P9; mount empty
 §0): read/write GATK `BaseRecalibrator`-style reports (RecalTable0/1/2)
 and apply a parsed report to reads exactly as ApplyBQSR would — here by
-building the same dense Q' lookup table the TPU gather consumes (D10).
+building the same dense Q' lookup table the pass-4 gather consumes (D10).
 
 Format notes (GATKReport v1.1): '#:GATKReport.v1.1:<ntables>' header;
 each table is '#:GATKTable:<ncols>:<nrows>:<fmt...>:;' + a
@@ -171,7 +171,7 @@ def read_gatk_report(path: str) -> dict:
 def recal_table_from_report(report: dict, rg_names: list[str],
                             max_len: int) -> np.ndarray:
     """ApplyBQSR math from a parsed report -> dense int8 Q' lookup
-    [num_rg, NUM_Q, 2*max_len, 17] (the same table the TPU gather uses).
+    [num_rg, NUM_Q, 2*max_len, 17] (the same table the pass-4 gather uses).
 
     q' = clamp(round(q + dRG + dQ + dCycle + dContext)) with each delta =
     EmpiricalQuality(level) - prior(level), empty cells contributing 0 —

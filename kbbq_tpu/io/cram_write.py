@@ -58,7 +58,9 @@ def _encoding_stop(stop: int, cid: int) -> bytes:
 def _block(method: int, ctype: int, cid: int, raw: bytes) -> bytes:
     if method == 1:
         import gzip
-        data = gzip.compress(raw, 1)
+        # mtime=0: the gzip header carries no clock, so equal input
+        # gives equal bytes (output determinism is a spec claim)
+        data = gzip.compress(raw, 1, mtime=0)
     elif method == 4:
         data = rans_compress_o1(raw) if len(raw) > 1000 else \
             rans_compress_o0(raw)

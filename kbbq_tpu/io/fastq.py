@@ -1,6 +1,6 @@
 """Vectorized FASTQ reader/writer (plain or gzip).
 
-TPU-first design (SURVEY.md §8.1 L0, H6): the whole file is scanned with
+Vectorized design (SURVEY.md §8.1 L0, H6): the whole file is scanned with
 NumPy — newline offsets via a single pass, sequence/quality lines sliced by
 offset arithmetic — no per-read Python loop on the hot path.  The writer
 exploits the kbbq invariant that ONLY quality strings change
@@ -150,7 +150,7 @@ def extract_padded_arrays(fq: FastqData, max_len: int | None = None):
         raise ValueError(f"read length {int(lens.max())} exceeds max_len {L}")
     # native one-pass LUT decode (threads): the numpy path below
     # materializes two [N, L] int64 index arrays per chunk (~70 ns/base
-    # measured; the hugepage fault storm of KNOWN_ISSUES #12 rides on
+    # measured; the hugepage fault storm of KNOWN_ISSUES #2 rides on
     # those fresh temporaries) — the C loop is ~2 ns/base
     from . import native_lib
     from ..utils.mem import hugepage_empty

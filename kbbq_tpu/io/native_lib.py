@@ -210,7 +210,7 @@ def apply_recal(recal, codes, quals, mask, rgs, seconds,
     quals = np.ascontiguousarray(quals, dtype=np.int8)
     # bool and uint8 share representation: view, don't astype-copy a
     # [N, L] array (fresh 60 MB first-touch is the pathology of
-    # KNOWN_ISSUES #12)
+    # KNOWN_ISSUES #2)
     if mask.dtype == np.bool_ and mask.flags.c_contiguous:
         mask = mask.view(np.uint8)
     else:

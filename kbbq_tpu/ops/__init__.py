@@ -1,4 +1,4 @@
-"""Pure JAX kernels — the TPU compute path (SURVEY.md §8.1 L1).
+"""Pure JAX kernels — the device compute path (SURVEY.md §8.1 L1).
 
 Every op here is bit-exact against its twin in ``kbbq_tpu.oracle`` (tests/
 test_ops.py): all device arithmetic is integer-only (uint32/int32), so

@@ -5,7 +5,7 @@ ONE random HBM word fetch + in-register bit tests (SURVEY.md H4).
 INSERT passes scatter-set single bytes into a uint8 staging array (no
 read-modify-write: all writes store 1, so collisions commute and sharding
 cannot change the result, SURVEY.md H5); `bloom_rows` packs the staging
-bytes into uint32 block words once per pass boundary via an exact MXU
+bytes into uint32 block words once per pass boundary via an exact bf16
 matmul.  The oracle's byte array is the staging view of the same bits —
 byte-level semantics are identical.
 
@@ -80,9 +80,8 @@ def bloom_insert(slots: jax.Array, hi: jax.Array, lo: jax.Array,
     pos = probe_positions(hi, lo, num_hashes, log2_m).astype(jnp.int32)
     oob = jnp.int32(m)
     pos = jnp.where(mask[..., None], pos, oob)
-    # fence the index math out of the serialized scatter loop (see
-    # bloom_query_rows); the scatter body then only reads precomputed
-    # indices and stores the constant 1
+    # fence the index math out of the scatter; its body then only reads
+    # precomputed indices and stores the constant 1
     pos = jax.lax.optimization_barrier(pos.reshape(-1))
     return slots.at[pos].set(
         jnp.uint8(1), mode="drop", indices_are_sorted=False,
@@ -93,12 +92,11 @@ def bloom_insert_rows(slots: jax.Array, hi: jax.Array, lo: jax.Array,
                       mask: jax.Array, num_hashes: int) -> jax.Array:
     """bloom_insert with ONE scatter iteration per k-mer (not per probe).
 
-    TPU scatters run as a serialized per-index loop, so cost is set by
-    the INDEX COUNT, not bytes moved.  All `num_hashes` probe bits of a
-    k-mer live in one 32-bit block word (D3), i.e. within one aligned
-    32-byte span of the staging array — so we build each k-mer's 0/1
-    byte pattern vectorized as a 128-byte row and scatter-MAX whole rows:
-    num_hashes x fewer serialized iterations, and max over {0,1} bytes
+    All `num_hashes` probe bits of a k-mer live in one 32-bit block word
+    (D3), i.e. within one aligned 32-byte span of the staging array — so
+    we build each k-mer's 0/1 byte pattern vectorized as a 128-byte row
+    and scatter-MAX whole rows: num_hashes x fewer scatter indices, and
+    max over {0,1} bytes
     is OR, so the final staging bytes are identical to bloom_insert's
     (and remain shard-order-invariant: max commutes).
     """
@@ -112,10 +110,8 @@ def bloom_insert_rows(slots: jax.Array, hi: jax.Array, lo: jax.Array,
     rowidx = block >> 2                       # 128-byte staging row
     tgt = (block & 3)[:, None] * 32 + off     # byte lanes within the row
     lane = jax.lax.broadcasted_iota(jnp.int32, (1, 128), 1)
-    # OR of num_hashes [N, 128] one-hot compares, NOT one [N, 128, h]
-    # broadcast: a minor dim of h(=4) pads to the 128-lane tile on TPU
-    # (docs/KNOWN_ISSUES.md #9) — the 3-D form cost ~15 ms/batch in the
-    # round-2 device trace vs ~2 ms for the fused 2-D compares
+    # OR of num_hashes [N, 128] one-hot compares (fused 2-D), not one
+    # [N, 128, h] broadcast with a tiny minor dim
     hit = lane == tgt[:, 0:1]
     for j in range(1, num_hashes):
         hit = hit | (lane == tgt[:, j:j + 1])
@@ -166,13 +162,10 @@ def bloom_rows_dense(block: jax.Array, w: jax.Array, mask: jax.Array,
     """Packed filter (uint32 [m/32]) from per-k-mer (block, word) pairs
     via sort + segmented OR + compaction sort + one unique scatter.
 
-    TPU scatters run serialized (~16 ns/index: 0.75 s/pass at the 400k
-    bench when every k-mer slot scatters); here only the <= M segment-
-    last entries do.  Stages at 49M keys / M=2^21 words (v5e): sort
-    210 ms + OR-scan 70 ms + compaction sort 210 ms + 2M-index scatter
-    ~35 ms.  (The previous extract — searchsorted of all M word indices
-    into the 49M sorted keys — cost ~1.2 s: binary-search cost scales
-    with M x log n, the compaction sort does not.)
+    Instead of one scatter index per k-mer slot, only the <= M segment-
+    last entries scatter.  (A searchsorted of all M word indices into
+    the sorted keys scales with M x log n; the compaction sort does
+    not.)
 
     Exactness: sort groups equal blocks; the running OR within a
     segment is numerically MONOTONE (a|b >= a unsigned), so the
@@ -257,10 +250,10 @@ def bloom_rows(slots: jax.Array) -> jax.Array:
     """Pack the byte filter into bit-blocks: uint32 [m/32], word b's bit j
     = slots[b*32 + j].  Built once per pass boundary.
 
-    Packing runs on the MXU: bytes (0/1) x power-of-two weights are exact
-    in bf16, accumulated in f32 (sums < 2^16) — one [m/512, 512] x
-    [512, 32] matmul instead of 32 stride-32 slices (which cost 2.2s on a
-    134M filter; this is ~bandwidth: read m bytes once).
+    Packing is a matrix product: bytes (0/1) x power-of-two weights are
+    exact in bf16, accumulated in f32 (sums < 2^16) — one [m/512, 512] x
+    [512, 32] matmul instead of 32 stride-32 slices; it reads m bytes
+    once.
     """
     m = slots.shape[0]
     assert m % 512 == 0, "bloom size must be a multiple of 512 slots"
@@ -294,11 +287,8 @@ def bloom_query_rows(packed: jax.Array, hi: jax.Array, lo: jax.Array,
     """
     log2_m = int(packed.shape[0] * 32).bit_length() - 1
     block, off = block_and_offsets(hi, lo, num_hashes, log2_m)
-    # NOTE: fencing the gather into its own fusion with
-    # optimization_barrier was tried and made this SLOWER (88.7 vs
-    # 58.0 ns/probe measured on v5e) — the barrier materializes the
-    # index/word arrays to HBM without shrinking the serialized gather
-    # loop.  Leave the fetch fused.
+    # the fetch stays fused with the index math: an optimization_barrier
+    # here would materialize the index/word arrays to device memory
     word = packed[block]                    # [...] one fetch per k-mer
     bits = (word[..., None] >> off.astype(_u32)) & _u32(1)
     return jnp.min(bits, axis=-1) > 0

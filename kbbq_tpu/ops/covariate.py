@@ -2,8 +2,8 @@
 
 Twin: oracle/covariate.py::accumulate_read.  Counters are int32 on device
 (a flush cycle caps events per device epoch well below 2^31; the pipeline
-folds epochs into host int64 totals — exact, and sidesteps TPUs' lack of
-int64).  Scatter-adds of +1 commute, so any sharding/batch order yields
+folds epochs into host int64 totals — exact, with no x64 mode on
+device).  Scatter-adds of +1 commute, so any sharding/batch order yields
 identical tables (SURVEY.md H5).
 """
 
@@ -69,10 +69,9 @@ def accumulate_covariates(state: dict, codes: jax.Array, quals: jax.Array,
                           mask: jax.Array, rgs: jax.Array,
                           seconds: jax.Array, errors: jax.Array) -> dict:
     """Accumulate one batch into the covariate tables via one-hot int8
-    MXU matmuls (the north star's "one-hot scatter-adds", literally).
-
-    TPU scatter-add runs serialized (~7ns/element); histogramming as
-    int8 x int8 -> int32 contractions runs on the MXU instead:
+    matmuls (the north star's "one-hot scatter-adds", literally): the
+    histograms are int8 x int8 -> int32 contractions instead of
+    scatter-adds:
 
       cyc[rgq, cyc_idx] += sum_b onehot_rgq[b, l]         (cycle ~ l)
       din[rgq, dinuc]   += onehot_rgq[B*L, :]^T @ onehot_din[B*L, :]
@@ -100,7 +99,7 @@ def accumulate_covariates(state: dict, codes: jax.Array, quals: jax.Array,
     # ---- cycle tables: cycle index is a function of (l, second) ----
     # split lanes by read-2 flag so each group has one cycle per column
     def cyc_hist(weight8):
-        # [L, nrgq] per second-flag value; contraction over B on the MXU
+        # [L, nrgq] per second-flag value; contraction over B
         w1 = weight8 * (~seconds)[:, None].astype(jnp.int8)
         w2 = weight8 * seconds[:, None].astype(jnp.int8)
         h1 = jnp.einsum("bl,blq->lq", w1, oh_rgq,

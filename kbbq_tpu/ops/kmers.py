@@ -1,10 +1,11 @@
 """Batched JAX k-mer kernels: rolling canonical packing + 32-bit hashing.
 
 Bit-exact twins of kbbq_tpu/oracle/kmers.py (DECISIONS.md D1-D3, D5).
-Design notes (SURVEY.md H3): k-mers are (hi, lo) uint32 lane pairs — no
-int64 on TPU; the packer is a length-L `lax.scan` carrying 4 uint32 lanes
-per read, vectorized over the batch (VPU elementwise work, O(B*L), vs
-O(B*L*k) for naive per-window packing).
+Design notes (SURVEY.md H3): k-mers are (hi, lo) uint32 lane pairs — the
+32-bit arithmetic is part of the bit-exact spec (D1-D3) and needs no x64
+mode; the packer is a length-L `lax.scan` carrying 4 uint32 lanes per
+read, vectorized over the batch (elementwise work, O(B*L), vs O(B*L*k)
+for naive per-window packing).
 """
 
 from __future__ import annotations

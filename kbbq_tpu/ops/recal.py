@@ -94,9 +94,8 @@ def apply_recal_table(recal: jax.Array, codes: jax.Array, quals: jax.Array,
     cv = base_covariates(codes, quals, mask, seconds)
     rg = rgs.astype(_i32)[:, None]
     din = cv["din"]  # DINUC_INVALID (=16) indexes the zero-delta column
-    # one flattened-index gather per base, fenced so the (serialized) TPU
-    # gather loop doesn't swallow the index math / output select (see
-    # ops/bloom.py::bloom_query_rows)
+    # one flattened-index gather per base, fenced so the gather does not
+    # swallow the index math / output select
     nrg, nq, nc, nd = recal.shape
     flat = ((rg * nq + cv["q"]) * nc + cv["cyc"]) * nd + din
     flat = jax.lax.optimization_barrier(flat)

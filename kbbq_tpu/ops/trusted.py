@@ -17,8 +17,7 @@ def _window_sum_full(x: jax.Array, k: int) -> jax.Array:
     clipped to [0, n).  x: int32 [B, n] -> int32 [B, n+k-1].
 
     The clipped index vectors are piecewise-affine, so the two cumsum
-    reads are static slices + edge broadcasts — no gather (TPU gathers
-    run serialized; a [B, n+k-1] fancy-index here cost ~10ms/batch)."""
+    reads are static slices + edge broadcasts — no gather."""
     B, n = x.shape
     cs = jnp.concatenate(
         [jnp.zeros((B, 1), x.dtype), jnp.cumsum(x, axis=1)], axis=1)
@@ -67,9 +66,9 @@ def trusted_mask_batch(hits: jax.Array, valid: jax.Array,
     Returns: bool [B, n].
     """
     s, x = coverage_counts(hits, valid, k)
-    # thresholds[x] as a k+1-step select chain: a [B, L] gather from the
-    # tiny table would run serialized (~1.2M probes/batch); x is bounded
-    # by k+1 values so static compares fuse into cheap vector selects
+    # thresholds[x] as a k+1-step select chain instead of a [B, L]
+    # gather from the tiny table; x is bounded by k+1 values so static
+    # compares fuse into cheap vector selects
     th = jnp.zeros_like(s)
     for t in range(thresholds.shape[0]):
         th = jnp.where(x == t, thresholds[t], th)

@@ -2,8 +2,8 @@
 
 Bit-exact spec: DECISIONS.md D1-D3 / SURVEY.md Appendix A.1.  Everything is
 expressed over (hi, lo) uint32 lane pairs so the JAX kernels
-(kbbq_tpu/ops/kmers.py) can match it operation-for-operation — TPUs have no
-fast int64 (SURVEY.md H3).
+(kbbq_tpu/ops/kmers.py) can match it operation-for-operation (SURVEY.md
+H3).
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ Mirrors SURVEY.md §4.1's pass structure exactly, in NumPy, single process:
   host: delta math -> dense recal table (D9/D10)
   P4 per-base gather -> new quals
 
-This is the parity authority for the full TPU pipeline
+This is the parity authority for the full device pipeline
 (kbbq_tpu/pipeline/recalibrate.py).
 """
 

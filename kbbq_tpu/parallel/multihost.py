@@ -1,10 +1,9 @@
 """Multi-host runtime (BASELINE config 5; SURVEY.md §3.3 / §6).
 
-Replaces the NCCL/MPI world of GPU frameworks with the TPU-native stack:
-`jax.distributed.initialize` + GSPMD global arrays; intra-slice traffic
-rides ICI, cross-host covariate merges ride DCN — all through the same
-shard_map programs as single-host (kbbq_tpu/parallel/sharded*.py), which
-operate on global arrays and are host-count agnostic.
+`jax.distributed.initialize` + GSPMD global arrays; every collective —
+within a host and across hosts — goes through the same shard_map
+programs as single-host (kbbq_tpu/parallel/sharded*.py), which operate
+on global arrays and are host-count agnostic.
 
 This module provides the host-side glue that cannot be expressed in XLA:
 process initialization, per-host input partitioning, and global-array
@@ -28,7 +27,7 @@ def init_multihost(coordinator: str | None = None,
     """Initialize jax.distributed (no-op when single-process).
 
     Args resolve from env (JAX_COORDINATOR, JAX_NUM_PROCESSES,
-    JAX_PROCESS_ID) when not given — the standard TPU pod launch shape.
+    JAX_PROCESS_ID) when not given.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR")
     num_processes = num_processes or int(
@@ -218,7 +217,7 @@ class MultihostRecalPipeline:
                                     "seconds", "read_ids")):
         """LOCAL Batch (local_batch rows) -> global device arrays.
 
-        `fields` limits what crosses DCN/ICI to what the pass actually
+        `fields` limits what crosses the interconnect to what the pass actually
         reads: passes 1-2 need only codes (+ ids for sampling) — quals/
         mask/rgs/seconds are pass-3/4 inputs (round-2 VERDICT weak #5).
         """
@@ -394,11 +393,11 @@ def _make_mh_pipeline(config, num_rg, max_len, total_bases, total_kmers,
     'auto' shards once the filters outgrow the replicated budget."""
     if bloom_layout == "auto":
         from ..oracle.pipeline import bloom_params_for
-        from ..pipeline.recalibrate import REPLICATED_BLOOM_BUDGET
+        from ..utils.mem import device_budget
         alpha, coverage = config.resolve_alpha(total_bases)
         pa, pb = bloom_params_for(config, total_kmers, alpha, coverage)
         bloom_layout = ("replicated"
-                        if pa.m + pb.m <= REPLICATED_BLOOM_BUDGET
+                        if pa.m + pb.m <= device_budget("replicated")
                         else "sharded")
     if bloom_layout == "sharded":
         return MultihostShardedBloomPipeline(
@@ -455,7 +454,7 @@ def recalibrate_fastq_multihost(in_paths, out_paths, config,
 
     Every process calls this with the SAME arguments (shared filesystem);
     each host streams only its partition of the input files, global
-    batches assemble over DCN/ICI via the process-local-data API, and
+    batches assemble across hosts via the process-local-data API, and
     each host writes the outputs for its own files.  out_paths: list of
     per-input output paths (a single concatenated sink is impossible
     across hosts).  Output bytes are identical to the single-host
@@ -1047,7 +1046,7 @@ def recalibrate_bam_multihost(in_path: str, out_path: str, config,
     header, the last host's the BGZF EOF marker, so
     `cat out.part-* > out.bam` is a valid single BAM whose records are
     exactly the single-host streaming output's.  Covariates merge over
-    DCN/ICI exactly as the FASTQ pod path (integer-commutative)."""
+    the interconnect exactly as the FASTQ pod path (integer-commutative)."""
     from ..io.bam_stream import DEFAULT_CHUNK_RECORDS, BamStreamWriter, \
         bgzf_member_index
     from ..io.bam_vec import rewrite_quals_chunk

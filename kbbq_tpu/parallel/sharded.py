@@ -86,7 +86,7 @@ def build_sharded_steps(mesh: Mesh, k: int, num_hashes: int,
                         "din_total", "din_errors")})
     def step_covariates(rows_b, cov_dm, codes, quals, mask, rgs, seconds):
         # production walk router (difficulty-scheduled when the local
-        # batch divides into walk chunks) — see docs/KNOWN_ISSUES.md #1
+        # batch divides into walk chunks)
         errors = infer_errors(rows_b, codes, k, num_hashes,
                               ext_cap=ext_cap)
         local = {kk: v[0] for kk, v in cov_dm.items()}
@@ -179,7 +179,7 @@ class ShardedRecalPipeline:
                                            "rgs", "seconds", "read_ids")):
         """Ship only the arrays the pass reads (passes 1-2: codes [+ids];
         quals/mask/rgs/seconds are pass-3/4 inputs) — round-2 VERDICT
-        weak #5: the old 6-array put wasted ICI/DCN bytes per batch."""
+        weak #5: the old 6-array put wasted interconnect bytes per batch."""
         src = {"codes": b.codes, "quals": b.quals, "mask": b.mask,
                "rgs": b.rgs, "seconds": b.seconds,
                "read_ids": b.read_ids}
@@ -217,8 +217,7 @@ class ShardedRecalPipeline:
         self._flush_cov()
 
     def _flush_cov(self) -> None:
-        # plain asarray then astype: dtype-converting asarray on device
-        # arrays is pathologically slow (docs/KNOWN_ISSUES.md)
+        # plain asarray then astype: one bulk transfer, widened on host
         s = {kk: np.asarray(v).astype(np.int64).sum(axis=0)
              for kk, v in self.cov_dm.items()}
         self.cov.totals.cyc_total += s["cyc_total"]

@@ -29,7 +29,7 @@ changes.
 Bandwidth: the BATCH-level streams (pass-1/2 inserts, pass-2 trusted
 query, pass-3 initial all-window query) ride an ALL_TO_ALL bucket
 exchange — each k-mer travels only to the shard that owns its block, so
-per-device ICI traffic is O(stream/D) instead of the all-gather's
+per-device interconnect traffic is O(stream/D) instead of the all-gather's
 O(stream).  Buckets have a fixed capacity (1.5x the uniform-hash mean;
 hash-uniform bucket sizes concentrate far below it); if any device's
 bucket ever overflows, a globally-agreed lax.cond falls back to the
@@ -94,7 +94,7 @@ def build_steps(mesh: Mesh, k: int, num_hashes: int, log2_m_a: int,
         """all_to_all bucket exchange of the flat (h1, h2) stream.
 
         Each masked-in entry travels ONLY to the device owning its
-        block (contiguous word ranges): per-device ICI traffic is
+        block (contiguous word ranges): per-device interconnect traffic is
         O(stream/D) vs the all-gather's O(stream).  Fixed bucket
         capacity C (static shape); returns received entries, the
         requester-side answer slots, and the global no-overflow flag.
@@ -352,7 +352,7 @@ class ShardedBloomRecalPipeline:
                                            "rgs", "seconds", "read_ids")):
         """Ship only the arrays the pass reads (passes 1-2: codes [+ids];
         quals/mask/rgs/seconds are pass-3/4 inputs) — round-2 VERDICT
-        weak #5: the old 6-array put wasted ICI/DCN bytes per batch."""
+        weak #5: the old 6-array put wasted interconnect bytes per batch."""
         src = {"codes": b.codes, "quals": b.quals, "mask": b.mask,
                "rgs": b.rgs, "seconds": b.seconds,
                "read_ids": b.read_ids}

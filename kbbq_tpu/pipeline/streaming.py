@@ -33,11 +33,8 @@ from ..io.stream import (
     scan_fastq_files,
 )
 from ..oracle.bloom import BloomParams
-from .recalibrate import (
-    REPLICATED_BLOOM_BUDGET,
-    RecalConfig,
-    RecalPipeline,
-)
+from ..utils.mem import device_budget
+from .recalibrate import RecalConfig, RecalPipeline
 
 
 def _make_pipeline(config: RecalConfig, num_rg: int, max_len: int,
@@ -59,7 +56,7 @@ def _make_pipeline(config: RecalConfig, num_rg: int, max_len: int,
         from ..oracle.pipeline import bloom_params_for
         pa, pb = bloom_params_for(config, total_kmers, alpha, coverage)
         bloom_layout = ("replicated"
-                        if pa.m + pb.m <= REPLICATED_BLOOM_BUDGET
+                        if pa.m + pb.m <= device_budget("replicated")
                         else "sharded")
     if bloom_layout == "replicated":
         from ..parallel.sharded import ShardedRecalPipeline

@@ -202,8 +202,7 @@ class Checkpoint:
         the sharded pipelines, which checkpoint the uint32 row view
         rather than byte staging)."""
         os.makedirs(self.path, exist_ok=True)
-        # plain asarray (no dtype=): dtype-converting asarray on device
-        # arrays is pathologically slow (docs/KNOWN_ISSUES.md #5).
+        # plain asarray (no dtype=): one bulk transfer per array.
         # tmp+rename so a crash mid-write never leaves a partial file
         # under the final name (the recovery tests poll for it)
         path = os.path.join(self.path, f"{name}.npy")

@@ -1,18 +1,19 @@
-"""Host allocation helpers for this environment's episodic page-fault
-slow path (docs/KNOWN_ISSUES.md #12).
+"""Memory helpers: device routing budgets, and host buffers that fault
+in 2 MB pages.
 
-Measured 2026-08-19: while a device session is active, first-touch
-minor faults on fresh anonymous memory intermittently cost ~375 us per
-fault-around block (~170 MB/s effective fill rate, ~40x normal) — the
-root cause of the round-2 "host-side pass-time inflation 3-15x"
-mystery (pass 4 at 0.09 s standalone vs 1.5-8 s mid-bench).  glibc
-frees >=32 MB blocks back to the OS via munmap, so every large numpy
-temp re-pays the fault storm.
+Device budgets (`device_budget`): the engines pick a route by how many
+bytes a run would hold on one device.  Each budget is a fixed share of
+the device's own `bytes_limit`; on the CPU backend, which reports no
+device memory, the same shares of 16 GiB (`CPU_BUDGETS`) apply — the
+sizes the CPU test suite routes by.
 
-MADV_HUGEPAGE on the backing pages (THP is madvise-mode here) cuts the
-fault count ~500x (2 MB pages): the same mid-run fill measured 0.569 s
--> 0.013 s.  `hugepage_empty` is np.empty + that madvise; use it for
-every large host buffer on a hot path.
+Host buffers (docs/KNOWN_ISSUES.md #2): first-touch minor faults on
+fresh anonymous memory have been measured at ~375 us per fault-around
+block on a loaded host (~40x normal), and glibc returns >=32 MB blocks
+to the OS via munmap, so every large numpy temp can re-pay the fault
+storm.  MADV_HUGEPAGE on the backing pages (THP in madvise mode) cuts
+the fault count ~500x.  `hugepage_empty` is np.empty + that madvise;
+use it for every large host buffer on a hot path.
 """
 
 from __future__ import annotations
@@ -27,6 +28,38 @@ try:
     _libc = ctypes.CDLL("libc.so.6", use_errno=True)
 except OSError:                   # non-glibc platform: plain empty
     _libc = None
+
+
+# sixteenths of device memory per routing budget
+_BUDGET_SHARES = {
+    "resident": 6,       # whole-dataset resident engine (~6 B/base)
+    "replicated": 4,     # both filters' staging, per device (replicated)
+    "dense_build": 3,    # sort-build k-mer triples (~9 B/k-mer)
+    "window_cache": 2,   # streamed engine's packed device window cache
+}
+CPU_BUDGETS = {name: share << 30 for name, share in _BUDGET_SHARES.items()}
+
+
+def _default_device():
+    import jax
+    return jax.devices()[0]
+
+
+def device_budget(name: str, device=None) -> int:
+    """Bytes the `name` route may hold on `device` (default: the first
+    device).  An accelerator that reports no `bytes_limit` is an error:
+    a guessed size would route runs the device cannot hold."""
+    if device is None:
+        device = _default_device()
+    share = _BUDGET_SHARES[name]
+    if device.platform == "cpu":
+        return CPU_BUDGETS[name]
+    limit = (device.memory_stats() or {}).get("bytes_limit")
+    if not limit:
+        raise RuntimeError(
+            f"{device.platform} device {device.device_kind!r} reports no "
+            f"bytes_limit; cannot size the {name!r} budget")
+    return int(limit) * share // 16
 
 
 def madvise_hugepage(arr: np.ndarray) -> None:

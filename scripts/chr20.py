@@ -1,25 +1,26 @@
 """chr20-class realistic-scale datapoint (BASELINE config 4; round-3
 VERDICT #2): ~13M reads / 150 bp / 30x over a 65 Mb synthetic genome,
 streamed FASTQ disk->disk through the resident-window engine.  Filter B
-sizes to >= 2^31 slots (256 MB packed in HBM) — the first datapoint
+sizes to >= 2^31 slots (256 MB packed on device) — the first datapoint
 where the Bloom filters leave the toy regime.
 
 Usage:
   python scripts/chr20.py stage    # write the 4 GB input FASTQ (once)
   python scripts/chr20.py golden   # CPU-backend golden quals (~1-2 h)
-  python scripts/chr20.py tpu      # the timed chip run + parity gate
+  python scripts/chr20.py run      # the timed card run + parity gate
 
-Stages persist under /root/chr20_data so reruns skip them.
+Stages persist under $CHR20_DATA (default <checkout>/.chr20_data) so
+reruns skip them.
 """
 import json
-import sys as _sys
-_sys.path.insert(0, "/root/repo")
 import os
 import resource
 import sys
 import time
 
-DATA = "/root/chr20_data"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+DATA = os.environ.get("CHR20_DATA", os.path.join(ROOT, ".chr20_data"))
 READS = int(os.environ.get("CHR20_READS", 13_000_000))
 LEN = 150
 COVERAGE = 30.0
@@ -93,7 +94,7 @@ def stage():
 
 def golden():
     """CPU-backend streamed run -> golden quals (bit-identical to the
-    TPU path by design; the suite asserts engine equivalences)."""
+    device path by design; the suite asserts engine equivalences)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
@@ -121,20 +122,20 @@ def golden():
     _log("golden saved")
 
 
-def tpu():
-    import jax
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+def run():
+    from kbbq_tpu.utils.compile_cache import enable_compile_cache
+    from kbbq_tpu.utils.device import require_gpu
+    enable_compile_cache()
     import numpy as np
 
     from kbbq_tpu.pipeline import RecalConfig
     from kbbq_tpu.pipeline.stream_resident import \
         recalibrate_fastq_stream_resident
 
-    dev = jax.devices()[0]
+    dev = require_gpu("chr20.py run")
     _log(f"device: {dev}")
     cfg = RecalConfig(k=K, coverage=COVERAGE, batch_size=BATCH)
-    out_fq = os.path.join(DATA, "tpu_out.fq")
+    out_fq = os.path.join(DATA, "run_out.fq")
     timings = {}
     t0 = time.time()
     stats = recalibrate_fastq_stream_resident([IN_FQ], out_fq, cfg,
@@ -175,7 +176,8 @@ def tpu():
         "metric": "chr20_streamed_reads_per_sec_per_chip",
         "value": round(READS / dt2, 1),
         "parity": parity,
-        "detail": {"device": str(dev), "num_reads": READS,
+        "device": dev,
+        "detail": {"num_reads": READS,
                    "read_len": LEN, "coverage": COVERAGE, "k": K,
                    "genome_len": GENOME,
                    "wall_cold_s": round(dt, 1),
@@ -187,4 +189,4 @@ def tpu():
 
 
 if __name__ == "__main__":
-    {"stage": stage, "golden": golden, "tpu": tpu}[sys.argv[1]]()
+    {"stage": stage, "golden": golden, "run": run}[sys.argv[1]]()

@@ -1,14 +1,14 @@
 """chr20-scale oracle spot-check (round-4 VERDICT next #2, second half).
 
-The chr20 parity gate compares the TPU run to a CPU-backend twin of the
-SAME engine; this script breaks that circle AT SCALE: it runs passes
-1-2 on the chip at the full chr20 sizing (filter B = 2^31 slots), pulls
+The chr20 parity gate compares the card's run to a CPU-backend twin of
+the SAME engine; this script breaks that circle AT SCALE: it runs passes
+1-2 on the card at the full chr20 sizing (filter B = 2^31 slots), pulls
 the final packed trusted filter to the host, and re-derives pass-3
 error calls for a 10k-read sample two ways —
 
-  device: ops/inference.infer_errors on the chip rows
+  device: ops/inference.infer_errors on the device rows
   oracle: oracle/lighter.infer_read_errors per read on an OracleBloom
-          wrapping the UNPACKED chip filter bits
+          wrapping the UNPACKED device filter bits
 
 — asserting the decisions identical.  This checks the at-scale walk
 (real 256 MB filter, real FPR pattern) against the NumPy spec without
@@ -21,15 +21,16 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-import numpy as np
+import numpy as np  # noqa: E402
 
-DATA = "/root/chr20_data"
+DATA = os.environ.get("CHR20_DATA", os.path.join(ROOT, ".chr20_data"))
 READS = int(os.environ.get("CHR20_READS", 13_000_000))
 SAMPLE = int(os.environ.get("CHR20_SPOT_SAMPLE", 8192))  # production
 # batch width (the walk is only ever dispatched at B=8192 in the
-# engines; KNOWN_ISSUES #1 documents a backend miscompile at odd widths)
+# engines)
 LEN = 150
 COVERAGE = 30.0
 K = 32
@@ -43,10 +44,10 @@ def _log(msg):
 
 def main():
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     import jax.numpy as jnp
+
+    from kbbq_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from kbbq_tpu.pipeline import RecalConfig
     from kbbq_tpu.pipeline.stream_resident import (
@@ -79,14 +80,13 @@ def main():
     codes, quals, mask, lens = extract_padded_arrays(fq)
     assert codes.shape[0] == SAMPLE
 
-    # ---- device decisions on the REAL chip filter
+    # ---- device decisions on the REAL device filter
     from kbbq_tpu.constants import DEFAULT_EXT_CAP
     from kbbq_tpu.ops.inference import infer_errors
     t0 = time.time()
     errs_dev = np.asarray(infer_errors(
         eng.rows_b, jnp.asarray(codes), K, cfg.num_hashes,
-        walk_chunk=cfg.walk_chunk, ext_cap=cfg.ext_cap,
-        use_pallas=False))
+        walk_chunk=cfg.walk_chunk, ext_cap=cfg.ext_cap))
     _log(f"device walk on {SAMPLE} reads: {time.time() - t0:.1f}s")
 
     # ---- oracle decisions on the SAME filter bits

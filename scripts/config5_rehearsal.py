@@ -21,7 +21,8 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 PROCS = int(os.environ.get("C5_PROCS", "8"))
 READS = int(os.environ.get("C5_READS", "12000"))
@@ -81,7 +82,7 @@ def main():
                          + " --xla_force_host_platform_device_count=8"
                          ).strip()
     golden_code = f"""
-import sys; sys.path.insert(0, "/root/repo")
+import sys; sys.path.insert(0, {ROOT!r})
 import jax; jax.config.update("jax_platforms", "cpu")
 from kbbq_tpu.pipeline import RecalConfig
 from kbbq_tpu.pipeline.recalibrate import recalibrate_fastq
@@ -110,7 +111,7 @@ print("golden done")
         env["JAX_COORDINATOR"] = COORD
         env["JAX_NUM_PROCESSES"] = str(PROCS)
         env["JAX_PROCESS_ID"] = str(pid)
-        env["PYTHONPATH"] = "/root/repo" + os.pathsep + \
+        env["PYTHONPATH"] = ROOT + os.pathsep + \
             env.get("PYTHONPATH", "")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--worker"],

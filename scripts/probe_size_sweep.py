@@ -1,15 +1,24 @@
-"""ns/probe of the serialized XLA word gather vs FILTER SIZE (round-3
-VERDICT #2): the 9.56 ns floor was measured on an 8 MB filter; chr20/WGS
-filters are 256 MB - 2 GB where HBM row locality collapses.  One
-long-lived process, one >=48M-probe call per size."""
+"""ns/probe of the XLA word gather vs FILTER SIZE: bench-scale filters
+are ~8 MB, chr20/WGS filters 256 MB - 8 GB, where device-memory row
+locality (and the card's L2) stop helping.  One long-lived process,
+one >=48M-probe call per size; run it on the card.
+
+    python scripts/probe_size_sweep.py
+"""
 import json
+import os
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from kbbq_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 N = 48_000_000
 results = {}
@@ -35,4 +44,6 @@ for log2_m in (26, 28, 31, 33):
     print(f"log2_m={log2_m} ({M * 4 >> 20:5d} MB packed): "
           f"{ns:.2f} ns/probe", flush=True)
     del packed, blocks
-print(json.dumps(results))
+from kbbq_tpu.utils.device import device_info  # noqa: E402
+
+print(json.dumps({"device": device_info(), "results": results}))

@@ -1,11 +1,9 @@
-"""Address-sorted probe batching: measure or disprove (round-4 VERDICT
-next #1a).
+"""Address-sorted probe batching: measure or disprove.
 
-The chr20-scale HBM locality tax is ~6 ns/probe (9.2 ns at <=32 MB vs
-15.2 ns at >=256 MB filters).  Candidate fix: sort each bulk query's
-probe block-ids, gather in ascending-address order (HW-prefetch
-friendly), and invert the permutation.  This prices every leg on the
-real chip, one long-lived process:
+Large (chr20/WGS-class) filters pay a device-memory locality tax per
+probe.  Candidate fix: sort each bulk query's probe block-ids, gather in
+ascending-address order, and invert the permutation.  This prices every
+leg on the card, one long-lived process:
 
   unsorted   — the production serialized gather (baseline repro)
   presorted  — gather with ALREADY ascending indices (locality ceiling)
@@ -16,13 +14,19 @@ Verdict rule: `full` must beat `unsorted` at 256 MB+ for the rewrite to
 pay; `presorted` bounds what perfect locality could ever give.
 """
 import json
+import os
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from kbbq_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 N = 48_000_000
 results = {}
@@ -67,4 +71,6 @@ for log2_m in (28, 30, 31, 33):
               f"{row[name]:.2f} ns/probe", flush=True)
     results[f"{M * 4 >> 20}MB"] = row
     del packed, blocks, blocks_sorted
-print(json.dumps(results))
+from kbbq_tpu.utils.device import device_info  # noqa: E402
+
+print(json.dumps({"device": device_info(), "results": results}))

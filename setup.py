@@ -9,8 +9,8 @@ from setuptools import find_packages, setup
 setup(
     name="kbbq-tpu",
     version="0.1.0",
-    description=("TPU-native reference-free base quality score "
-                 "recalibration (kbbq capabilities, JAX/XLA design)"),
+    description=("Reference-free base quality score recalibration "
+                 "(kbbq capabilities, JAX/XLA design)"),
     packages=find_packages(include=["kbbq_tpu", "kbbq_tpu.*"]),
     package_data={"kbbq_tpu.io": ["native/Makefile", "native/*.cc"]},
     python_requires=">=3.10",

@@ -1,4 +1,4 @@
-"""CLI end-to-end tests (subprocess, CPU platform via KBBQ_PLATFORM)."""
+"""CLI end-to-end tests (subprocess, CPU platform via JAX_PLATFORMS)."""
 
 import gzip
 import os
@@ -11,7 +11,7 @@ import pytest
 from kbbq_tpu.io.fastq import parse_fastq_bytes
 from kbbq_tpu.utils.synth import make_dataset, to_fastq_bytes
 
-ENV = {**os.environ, "KBBQ_PLATFORM": "cpu"}
+ENV = {**os.environ, "JAX_PLATFORMS": "cpu"}
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -176,7 +176,7 @@ def test_cram_cli_end_to_end(tmp_path):
         [sys.executable, "-m", "kbbq_tpu", "recalibrate", str(p),
          "-o", str(out), "-k", "16", "-c", "16"],
         capture_output=True, env={**__import__('os').environ,
-                                  "KBBQ_PLATFORM": "cpu"})
+                                  "JAX_PLATFORMS": "cpu"})
     assert r.returncode == 0, r.stderr.decode()[-500:]
     got = read_bam(str(out))
     assert len(got.records) == len(recs)

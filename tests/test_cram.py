@@ -403,3 +403,18 @@ def test_cram_multi_slice_ref_based_roundtrip(tmp_path):
         for a, b in zip(bf.records, got.records):
             assert (a.seq_codes() == b.seq_codes()).all(), a.name
             assert (a.quals() == b.quals()).all()
+
+
+def test_cram_bytes_do_not_depend_on_the_clock(tmp_path, monkeypatch):
+    """Gzip-compressed blocks carry no timestamp: writing the same
+    records at two different times gives the same file bytes."""
+    import time
+
+    bf = _mixed_records(seed=19, n=48)
+    paths = []
+    for i, now in enumerate((1.0e9, 2.0e9)):
+        monkeypatch.setattr(time, "time", lambda now=now: now)
+        p = tmp_path / f"at{i}.cram"
+        write_cram(bf, str(p), records_per_container=16)
+        paths.append(p)
+    assert paths[0].read_bytes() == paths[1].read_bytes()

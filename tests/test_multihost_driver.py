@@ -87,8 +87,7 @@ def test_two_process_cli_matches_single_chip(tmp_path):
     procs = []
     for pid in range(2):
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["KBBQ_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "").replace(
             "--xla_force_host_platform_device_count=8", "")
             + " --xla_force_host_platform_device_count=4").strip()
@@ -181,8 +180,7 @@ def test_two_process_cli_bam_matches_single_host(tmp_path):
     procs = []
     for pid in range(2):
         env = dict(os.environ)
-        env.pop("JAX_PLATFORMS", None)
-        env["KBBQ_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "").replace(
             "--xla_force_host_platform_device_count=8", "")
             + " --xla_force_host_platform_device_count=4").strip()
@@ -223,8 +221,7 @@ def test_two_process_cli_bam_matches_single_host(tmp_path):
 def _mh_env(pid, coord, extra=None):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
-    env.pop("JAX_PLATFORMS", None)
-    env["KBBQ_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "").replace(
         "--xla_force_host_platform_device_count=8", "")
         + " --xla_force_host_platform_device_count=4").strip()

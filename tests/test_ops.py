@@ -1,7 +1,7 @@
 """Bit-exactness tests: every JAX kernel vs its NumPy-oracle twin.
 
 Run on CPU (conftest forces JAX_PLATFORMS=cpu, 8 virtual devices); all ops
-are integer-only so CPU/TPU agree exactly.
+are integer-only so CPU and GPU agree exactly.
 """
 
 import numpy as np
@@ -198,7 +198,7 @@ def test_infer_errors_chunked_matches_plain():
     plain = np.asarray(infer_errors_batch(rows, codes, k, 7))
     chunked = np.asarray(infer_errors_chunked(rows, codes, k, 7, chunk=32))
     assert (plain == chunked).all()
-    # scheduled variant (lax.map walks + MXU one-hot permutation):
+    # scheduled variant (lax.map walks + one-hot matmul permutation):
     # must be bit-identical too (needs a chunk-divisible batch)
     from kbbq_tpu.ops.inference import infer_errors, infer_errors_scheduled
     B = (codes.shape[0] // 32) * 32
@@ -364,7 +364,7 @@ def test_bloom_rows_dense_matches_scatter():
 
 def test_accumulate_covariates_host_matches_device():
     """Host covariate accumulation (C++ kernel + NumPy twin) is
-    bit-identical to the device MXU histogram given the same sparse
+    bit-identical to the device one-hot histogram given the same sparse
     error indices (integer adds commute — SURVEY.md H5)."""
     from kbbq_tpu.constants import MIN_USABLE_Q
     from kbbq_tpu.io.native_lib import accum_cov
